@@ -38,8 +38,9 @@ def build_parser():
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "float64"])
     ap.add_argument("--platform", default="",
-                    help="force a jax platform (cpu/tpu); overrides host "
-                         "site configuration, unlike JAX_PLATFORMS")
+                    help="jax platform to run on (cpu/gpu); default: JAX's "
+                         "own choice.  The run's JSON summary names the "
+                         "backend it ran on")
     ap.add_argument("--plot", default="",
                     help="render the run to this PNG (requires "
                          "--save-result)")
@@ -67,6 +68,7 @@ def _load_param(args):
 
 
 def run_one(mission_path: str, args, param, world: str = None) -> dict:
+    import jax
     import jax.numpy as jnp
     from .missions import load_mission
     from .sim.simulator import SyncSimulator
@@ -107,8 +109,12 @@ def run_one(mission_path: str, args, param, world: str = None) -> dict:
                      occ_resolution=esdf.resolution if esdf is not None
                      else None)
             print(f"plot written to {args.plot}")
-    print(json.dumps({"mission": mission_path, **{
-        k: v for k, v in summary.items() if not hasattr(v, "shape")}}))
+    dev = jax.devices()[0]
+    print(json.dumps({"mission": mission_path,
+                      "backend": dev.platform,
+                      "device_kind": dev.device_kind, **{
+                          k: v for k, v in summary.items()
+                          if not hasattr(v, "shape")}}))
     return summary
 
 

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native LSC swarm planner.
+"""Typed configuration for the batched LSC swarm planner.
 
 Single-source-of-truth replacement for the reference's three-tier config stack
 (launch args -> ROS param server -> mission JSON); see reference
@@ -168,15 +168,15 @@ class Param:
     debug_stop_seq: int = -1
     log: bool = False
 
-    # --- TPU-native extensions (no reference analog) ---
+    # --- batched-planner extensions (no reference analog) ---
     # Number of nearest-neighbour obstacles each agent constrains against.
     # <=0 means "all other agents" (reference behaviour).  Spatial pruning is
     # the CP/ring analog from SURVEY.md section 5.7 for 1000+ agent scaling.
     max_neighbors: int = -1
     # Batched QP interior-point iterations (static for jit).  This is a
-    # CAP: the fused TPU kernel exits early once every agent in a lane
-    # tile reaches qp_tol_gap / qp_tol_rp (warm-started steady-state
-    # cycles typically converge in well under half the cap).  The cap
+    # CAP: the solve exits early once every agent reaches the
+    # qp_tol_* exit triple (warm-started steady-state cycles typically
+    # converge in well under half the cap).  The cap
     # must leave headroom for CONGESTED cycles: at 14 iterations the
     # solver returns feasible-but-suboptimal points in dense swarms
     # (~1500 active-set-heavy rows) and the warm-start feedback locks
@@ -199,23 +199,22 @@ class Param:
     # goal-pull force ~ 2 w_t dist, and with the distance-scaled
     # terminal weight (w_t = clip(w/dist, w, 10w)) it stays >= ~2 for
     # any unfinished agent.  The f32 floor of EVALUATING r_d at a
-    # converged iterate (delta-coordinate solve) is ~0.03 on CPU and
-    # ~0.1-0.15 on TPU (bf16x6 'highest' emulation constants); 0.2
-    # sits above the TPU floor with a ~10x margin to the stale signal.
-    # Measured round 5 on captured production instances: the fused
-    # kernel exits at 9/40 iterations at tol_rd in [0.15, 1.0] and
-    # never below 0.15 on TPU.  Setting any tolerance to 0 disables
-    # early exit (fixed iteration count; used by tests that need
-    # cross-path determinism).
+    # converged iterate (delta-coordinate solve) is ~0.03 on CPU; 0.2
+    # was set on the previous chip, whose emulated full-f32 matmuls
+    # had a ~0.1-0.15 floor, and keeps a ~10x margin to the stale
+    # signal.  The floor on the H100 (native f32 at "highest") has not
+    # been measured.  Setting any tolerance to 0 disables early exit
+    # (fixed iteration count; used by tests that need cross-path
+    # determinism).
     qp_tol_gap: float = 1e-6
     qp_tol_rp: float = 1e-4
     qp_tol_rd: float = 0.2
     # f32 fixed-point step tolerance: with gap + primal converged, a
-    # lane whose applied primal step fell below this (metres in
+    # solve whose applied primal step fell below this (metres in
     # control-point deltas; the observed f32 jitter band is 1-2.5 cm,
     # this sits 10-25x under it) is latched even when r_d cannot be
     # certified -- at 1024-agent congestion the r_d evaluation floor
-    # exceeds 4 raw units for fully-converged lanes (dual magnitudes
+    # exceeds 4 raw units for fully-converged agents (dual magnitudes
     # scale it), and iterating past the fixed point is what DEGRADES
     # iterates, not what improves them.
     qp_tol_step: float = 1e-3
@@ -237,18 +236,6 @@ class Param:
     # lemma (see planner/constraints.lsc_planes).  The reference needs
     # no guard: CPLEX solves in f64 to ~1e-9 (traj_optimizer.cpp:31-154).
     lsc_guard_margin: float = 0.004
-    # Fused single-launch Pallas IPM dispatch: "auto" (TPU/f32, swarms
-    # >= qp_fused_min_agents), "on" (every size), "off" (always the XLA
-    # factored-row path; diagnostic A/B switch).  Same solver contract
-    # either way; see planner/optimizer.py for the size gate rationale.
-    qp_fused_mode: str = "auto"
-    # Minimum swarm size for the fused kernel under "auto": below this
-    # the per-dispatch overhead the kernel amortizes is negligible and
-    # its hardware solutions measurably trail the XLA path in downstream
-    # trajectory quality at congestion (multi_square16+forest, TPU f32,
-    # seeds {1,2,11}: fused 180-223 cycles vs XLA 147-155 -- a known
-    # round-5 gap documented in docs/TOLERANCES_r05.md).
-    qp_fused_min_agents: int = 128
     # QP failure surfacing (QPFAILED analog).  The reference throws from
     # CPLEX, dumps the model + refined conflict, and aborts the whole
     # run (traj_optimizer.cpp:99-144, multi_sync_simulator.cpp:325-327).

@@ -26,12 +26,16 @@ def build(force: bool = False) -> bool:
     if os.path.exists(_SO) and not force and \
             os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
         return True
+    # build under a private name, then rename: several processes (test
+    # workers) may build at once, and none may load a half-written file
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           "-std=c++17", _SRC, "-o", _SO]
+           "-std=c++17", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _SO)
         return True
-    except (subprocess.CalledProcessError, FileNotFoundError):
+    except (subprocess.CalledProcessError, FileNotFoundError, OSError):
         return False
 
 

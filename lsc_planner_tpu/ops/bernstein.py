@@ -1,4 +1,4 @@
-"""Bernstein-polynomial algebra, batched for TPU.
+"""Bernstein-polynomial algebra, batched over agents and segments.
 
 Covers the capability surface of the reference header-only polynomial library
 (``include/polynomial.hpp``): basis construction, curve evaluation,
@@ -6,12 +6,14 @@ derivative control points, flat-output state extraction with body rates,
 least-squares fitting, subdivision, and the jerk-cost Gram matrix used by the
 trajectory QP (``src/traj_optimizer.cpp:169-184`` buildQBase).
 
-Design notes (TPU-first):
+Design notes:
  - All static, shape-only matrices (basis-change B, Q_base, subdivision A)
    are built once in float64 numpy at setup and cast to the device dtype;
    nothing here branches on traced values.
  - Curve evaluation is expressed as small matmul/einsum contractions over a
    trailing (n+1) axis so XLA fuses them; callers vmap over agents/segments.
+   These contractions run at the caller's matmul precision: the planning
+   cycle traces them at full f32 (runtime.exact_f32).
 """
 from __future__ import annotations
 
@@ -243,7 +245,7 @@ def poly_multiply(a, b):
 def real_roots(coef, n_grid: int = 64, iters: int = 40):
     """Roots of p in [0, 1]: sign-change bracketing + fixed bisection.
 
-    TPU re-design of the reference's Descartes/bisection queue
+    Batched re-design of the reference's Descartes/bisection queue
     (realRootIsolation, polynomial.hpp:243-299): instead of a dynamic
     work queue, brackets are isolated on a uniform n_grid sampling (exact
     whenever adjacent roots are > 1/n_grid apart; the planner's degree-9

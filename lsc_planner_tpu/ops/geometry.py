@@ -169,7 +169,7 @@ def segment_box_distance(start, goal, box_min, box_max, iters: int = 48,
 
     The point-to-box distance along a line is convex in the parameter,
     so a fixed-iteration ternary search is exact to tolerance -- the
-    TPU-friendly replacement for the reference's edge-enumeration
+    branch-free batched replacement for the reference's edge-enumeration
     closestPointsBetweenLineSegmentAndStaticObs (geometry.hpp:398-436).
     """
     lo = jnp.zeros(start.shape[:-1], start.dtype)

@@ -5,7 +5,7 @@ Replaces the vendored Astar-3D package + GridBasedPlanner
 6-connected unit-cost (EnvironmentOptions defaults: allowdiagonal=FALSE,
 environmentoptions.cpp:13-20) with a euclidean heuristic -- its optimal
 paths are exactly the geodesics of a 6-neighbour wavefront distance field,
-which maps to TPU as an iterative min-plus stencil over (N, X, Y, Z)
+which maps to a batched iterative min-plus stencil over (N, X, Y, Z)
 batched across all agents; the sequential open-list disappears entirely.
 
 Also covers: grid occupancy from the ESDF + higher-priority-agent
@@ -381,17 +381,8 @@ class GridPlanner:
         goal = jax.vmap(self.to_cell)(desired_goal)
         start = jax.vmap(self.recover_start)(occ_hp, start)
 
-        if jax.default_backend() == "tpu":
-            # VMEM-resident Pallas relaxation: one HBM read/write per
-            # agent instead of per-iteration stencil round trips
-            from .wavefront_pallas import wavefront_distance
-            D_hp = wavefront_distance(occ_hp, goal,
-                                      max_iters=self.max_wavefront_iters)
-            D_st = wavefront_distance(occ_st, goal,
-                                      max_iters=self.max_wavefront_iters)
-        else:
-            D_hp = jax.vmap(self.wavefront)(occ_hp, goal)
-            D_st = jax.vmap(self.wavefront)(occ_st, goal)
+        D_hp = jax.vmap(self.wavefront)(occ_hp, goal)
+        D_st = jax.vmap(self.wavefront)(occ_st, goal)
         reachable = jax.vmap(
             lambda D, c: D[c[0], c[1], c[2]] < jnp.inf)(D_hp, start)
         D = jnp.where(reachable[:, None, None, None], D_hp, D_st)

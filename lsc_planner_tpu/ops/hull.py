@@ -1,6 +1,6 @@
 """Batched closest point between the origin and a small convex hull.
 
-TPU-native replacement for the reference's openGJK kernel
+Batched replacement for the reference's openGJK kernel
 (``src/openGJK/openGJK.cpp`` via ``closestPointsBetweenPointAndConvexHull``,
 ``include/geometry.hpp:364-394``), which the planner calls once per
 (agent, obstacle, segment) triple to get LSC normal vectors
@@ -16,7 +16,7 @@ equality-constrained subproblem
 as one fully-parallel batched linear solve, keep the lam >= 0 feasible ones
 (each is a point inside the hull, hence an upper bound; the true support is
 among them, hence exactness), and take the minimum.  Zero sequential steps,
-exact answer, thousands of instances per microsecond on the VPU/MXU.
+exact answer, elementwise over every instance at once.
 
 A FISTA fallback (accelerated projected gradient on the simplex) covers
 K > 8 where enumeration would blow up.
@@ -58,10 +58,10 @@ def _solve_subsets(points, subs, feas_tol: float = 1e-7):
 
     The math is fully scalarized over the tiny k x k systems: every G
     entry, Cholesky element, and substitution step is an elementwise op on
-    a FLAT (batch*S,) vector.  This keeps the VPU lanes fully occupied --
-    matrix layouts of shape (..., k, k) with k <= 5 pad the 128-wide lane
-    dimension ~30x, and the batched LU custom call is worse still (~40x
-    memory blowup); both dominated the swarm-scale profile.
+    a FLAT (batch*S,) vector, so XLA fuses the whole solve into a few
+    elementwise kernels instead of many (..., k, k) batched solves with
+    k <= 5.  (That choice was measured on the previous chip; it has not
+    been re-measured on the H100.)
     """
     S, k = subs.shape
     K = points.shape[-2]
@@ -69,7 +69,8 @@ def _solve_subsets(points, subs, feas_tol: float = 1e-7):
 
     # per-(subset-slot, dim) flat component vectors, selected with static
     # 0/1 matrices: a (..., K) x (K, S) contraction instead of a gather
-    # (TPU gathers at swarm-scale batch sizes dominated the LSC profile)
+    # (chosen on the previous chip, where gathers dominated the LSC
+    # profile; the A/B against a gather on the H100 is ROADMAP 1.4)
     comp = []                                        # comp[j][d]: (flat,)
     pts_d = [points[..., d] for d in range(3)]       # (..., K) each
     for j in range(k):
@@ -149,8 +150,7 @@ def closest_point_to_hull(points, iters: int = 0, max_support: int = 3):
     K = points.shape[-2]
     if K > 8:
         return _closest_point_fista(points, iters=max(iters, 256))
-    with jax.default_matmul_precision("highest"):
-        return _closest_point_enum(points, max_support)
+    return _closest_point_enum(points, max_support)
 
 
 def _closest_point_enum(points, max_support):
@@ -171,8 +171,8 @@ def _closest_point_enum(points, max_support):
     # non-finite losers must be zeroed (0 * inf = NaN)
     cand = jnp.where(jnp.isfinite(cand), cand, 0.0)
     # argmin selection as a masked sum (first-minimum one-hot) rather
-    # than take_along_axis: gathers at swarm-scale batches are slow on
-    # TPU, elementwise select + reduce fuses for free
+    # than take_along_axis: elementwise select + reduce fuses into the
+    # surrounding kernel, a gather does not
     d2_min = jnp.min(d2, axis=-1, keepdims=True)
     is_min = d2 <= d2_min
     first = jnp.cumsum(is_min.astype(d2.dtype), axis=-1) * \

@@ -1,10 +1,11 @@
 """Unrolled linear solvers for tiny (k <= 8) batched systems.
 
-``jnp.linalg.solve`` on TPU lowers tiny systems to a batched LU custom call
-whose (8,128) tile padding explodes memory ~40x and serializes poorly; for
-the planner's k in {1..5} systems (hull subset KKTs) we instead unroll
-Cholesky / forward-backward substitution into plain fused VPU ops: no
-custom calls, no padding blowup, fully parallel over any batch shape.
+Cholesky and forward/backward substitution written as elementwise ops on
+the trailing (k, k) entries, so XLA fuses them over any batch shape with
+no library call per system.  Nothing on the planning cycle calls these
+today (the hull solve scalarizes its own systems, ops/hull.py); they are
+kept as the unrolled alternative to the IPM's batched Cholesky, which
+has not been measured on the H100 (ROADMAP 1.1).
 """
 from __future__ import annotations
 

@@ -1,10 +1,10 @@
-"""Multi-chip execution: the swarm sharded over a device mesh.
+"""Multi-device execution: the swarm sharded over a device mesh.
 
 The reference's distributed story is ROS TCP pub/sub between per-agent
 planner nodes (SURVEY.md section 5.8); here the agent axis is sharded over
 a ``jax.sharding.Mesh`` and the per-cycle neighbour-trajectory exchange is
-one ``all_gather`` of the (N, M, n+1, 3) control-point tensor over ICI --
-the direct analog of update()'s obstacle collection
+one ``all_gather`` of the (N, M, n+1, 3) control-point tensor over the
+device interconnect -- the direct analog of update()'s obstacle collection
 (multi_sync_simulator.cpp:269-303).
 
 Each shard then plans its local agent block against the gathered global
@@ -22,10 +22,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..sim import audit
+from ..runtime import exact_f32
 from ..sim.simulator import SwarmState, CycleInfo, SyncSimulator
 
 AGENT_AXIS = "agents"
-HOST_AXIS = "hosts"          # DCN axis of the 2-axis mesh
+HOST_AXIS = "hosts"          # outer (between-host) axis of the 2-axis mesh
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -38,12 +39,12 @@ def make_mesh(n_devices: Optional[int] = None,
 
 def make_mesh_2d(n_hosts: int, chips_per_host: Optional[int] = None,
                  devices=None) -> Mesh:
-    """2-axis mesh (hosts, chips): the slow outer axis maps to DCN
-    (host boundaries), the fast inner axis to ICI within a host.  Device
-    order is host-major (jax.devices() already groups by process), so the
-    linearized agent order keeps each host's agents contiguous and the
-    DCN traffic of the hierarchical exchange is one block halo per host
-    pair instead of the full swarm."""
+    """2-axis mesh (hosts, chips): the slow outer axis maps to the
+    network between hosts, the fast inner axis to the links within a
+    host.  Device order is host-major (jax.devices() already groups by
+    process), so the linearized agent order keeps each host's agents
+    contiguous and the between-host traffic of the hierarchical exchange
+    is one block halo per host pair instead of the full swarm."""
     devices = list(devices if devices is not None else jax.devices())
     if chips_per_host is None:
         chips_per_host = len(devices) // n_hosts
@@ -100,7 +101,7 @@ def make_sharded_cycle(sim: SyncSimulator, mesh: Mesh,
     axis; one all_gather per cycle for the trajectory exchange.
 
     halo_shards = H switches the exchange from the full all_gather to a
-    ring-halo of the 2H+1 neighbouring shards (ppermute over ICI/DCN).
+    ring-halo of the 2H+1 neighbouring shards (ppermute).
     Requires 2H+1 <= mesh size, spatially sorted agent order (re-sort
     with `spatial_sort_state` between cycles as the swarm moves), and a
     homogeneous swarm (uniform radius/downwash/limits) since sorting
@@ -108,10 +109,13 @@ def make_sharded_cycle(sim: SyncSimulator, mesh: Mesh,
 
     A 2-axis mesh from `make_mesh_2d` switches to the hierarchical
     (multi-host) layout: agents sharded over (hosts, chips), the
-    trajectory exchange an all_gather over ICI within each host, and --
-    with halo_shards = H -- a host-block ring halo over the DCN axis, so
+    trajectory exchange an all_gather within each host, and -- with
+    halo_shards = H -- a host-block ring halo over the host axis, so
     cross-host traffic is 2H boundary blocks per host instead of the
-    whole swarm."""
+    whole swarm.
+
+    The cycle is traced under the planner's full-f32 matmul policy
+    (runtime.exact_f32)."""
     p = sim.param
     N = sim.N
     two_level = tuple(mesh.axis_names) == (HOST_AXIS, AGENT_AXIS)
@@ -187,7 +191,7 @@ def make_sharded_cycle(sim: SyncSimulator, mesh: Mesh,
                                         tiled=True)
             self_mask = my_ids[:, None] == jnp.arange(N)[None, :]
         elif two_level:
-            # intra-host all_gather over ICI, host-block halo over DCN
+            # intra-host all_gather, host-block halo between hosts
             H = halo_shards
             Lh = ici * L                       # agents per host
 
@@ -307,7 +311,7 @@ def make_sharded_cycle(sim: SyncSimulator, mesh: Mesh,
                             in_specs=(specs,),
                             out_specs=(specs, info_specs),
                             check_vma=False)
-    return jax.jit(sharded)
+    return jax.jit(exact_f32(sharded))
 
 
 def _part1by2(x):

@@ -10,15 +10,13 @@ by the QP assembly.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 # Every einsum touching ABSOLUTE positions (obs_pred, init_traj live at
-# world coordinates up to ~150 m) must run at exact f32: TPU's default
-# matmul precision routes f32 contractions through bf16 passes, whose
-# ~0.5 m quantum at those magnitudes would corrupt plane offsets.  The
-# relative quantities (rel, normals) are small and safe either way.
-_EXACT = jax.lax.Precision.HIGHEST
+# world coordinates up to ~150 m) must run at full f32: TF32 keeps ~11
+# bits, a ~7 cm quantum at those magnitudes, which would corrupt plane
+# offsets.  The cycle entry points trace these under
+# jax.default_matmul_precision("highest") (runtime.exact_f32).
 
 from ..ops import geometry as geo
 from ..ops import hull as hull_ops
@@ -98,8 +96,7 @@ def lsc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
          normal_t[..., 2:3] / dw[..., None, None]], axis=-1)
 
     # rhs_i = d_i + n . p_obs_i  with untransformed obstacle points
-    rhs = d + jnp.einsum("nomid,nomd->nomi", obs_pred, normal,
-                         precision=_EXACT)
+    rhs = d + jnp.einsum("nomid,nomd->nomi", obs_pred, normal)
     mask = jnp.broadcast_to(obs_mask[..., None], (N, O, M))
     return PlaneConstraints(normal=normal, rhs=rhs, mask=mask)
 
@@ -128,7 +125,7 @@ def bvc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
                               normal_t[..., 2:3] / dw[..., None]], axis=-1)
     normal_m = jnp.broadcast_to(normal[:, :, None, :], (N, O, M, 3))
     rhs = d[:, :, None, None] + jnp.einsum("nomid,nomd->nomi", obs_pred,
-                                           normal_m, precision=_EXACT)
+                                           normal_m)
     mask = jnp.broadcast_to(obs_mask[..., None], (N, O, M))
     return PlaneConstraints(normal=normal_m, rhs=rhs, mask=mask)
 
@@ -158,8 +155,7 @@ def rsfc_planes(init_traj, obs_pred, obs_pred_sizes, agent_radius,
     normal = jnp.concatenate(
         [normal[..., :2], normal[..., 2:3] / (dw ** 2)[..., None, None]],
         axis=-1)
-    rhs = d + jnp.einsum("nomid,nomd->nomi", obs_pred, normal,
-                         precision=_EXACT)
+    rhs = d + jnp.einsum("nomid,nomd->nomi", obs_pred, normal)
     mask = jnp.broadcast_to(obs_mask[..., None], (N, O, M))
     return PlaneConstraints(normal=normal, rhs=rhs, mask=mask)
 
@@ -191,8 +187,7 @@ def sfc_planes(boxes, active, init_traj=None,
     rhs = jnp.transpose(rhs, (0, 2, 1))                   # (N, 6, M)
     rhs = rhs[..., None]                                  # per ctrl point
     if guard_margin > 0.0 and init_traj is not None:
-        lhs0 = jnp.einsum("kd,nmid->nkmi", normals, init_traj,
-                          precision=_EXACT)
+        lhs0 = jnp.einsum("kd,nmid->nkmi", normals, init_traj)
         s0 = lhs0 - rhs                                   # (N, 6, M, n+1)
         rhs = rhs + jnp.clip(0.5 * s0, 0.0, guard_margin)
     n1 = rhs.shape[-1]

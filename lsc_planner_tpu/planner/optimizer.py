@@ -1,6 +1,7 @@
 """Trajectory-QP assembly: batched min-jerk Bernstein optimization.
 
-Re-designs the reference TrajOptimizer (``src/traj_optimizer.cpp``) for TPU:
+Re-designs the reference TrajOptimizer (``src/traj_optimizer.cpp``) as a
+batched tensor program:
 
  * The reference keeps all M*(n+1)*dim control points as CPLEX variables and
    adds phi + (M-1)*phi equality rows per dimension (buildAeqBase,
@@ -427,12 +428,13 @@ class TrajOptimizer:
 
         pos/vel/acc/current_goal: (N, 3); max_vel/max_acc: (N, 3);
         planes: LSC+SFC half-space rows.  Returns batched trajectories.
+        Contractions run at the caller's matmul precision: the cycle
+        entry points trace this under full f32 (runtime.exact_f32).
         """
-        with jax.default_matmul_precision("highest"):
-            return self._solve_impl(pos, vel, acc, current_goal,
-                                    nominal_velocity, max_vel, max_acc,
-                                    planes, world_min, world_max, y_warm,
-                                    slack, dtype)
+        return self._solve_impl(pos, vel, acc, current_goal,
+                                nominal_velocity, max_vel, max_acc,
+                                planes, world_min, world_max, y_warm,
+                                slack, dtype)
 
     def _slack_layout(self, slack: SlackSpec, n_rows_static: int,
                       C: int, dtype):
@@ -540,30 +542,13 @@ class TrajOptimizer:
 
         # Row-representation dispatch (static shapes, decided at trace
         # time): the factored form wins once the dense (N, C*M*(n+1), nv)
-        # row tensor is HBM-bandwidth-bound (~180 MB at 1024 agents x 32
-        # neighbours, streamed twice per IPM iteration); below that one
-        # big matmul beats many small contractions, so small swarms stay
-        # dense on CPU/f64.  On TPU/f32 the factored path further lowers
-        # to the single-launch VMEM-resident Pallas IPM
-        # (ops/ipm_pallas.py), which wins at every size.  Slack modes
-        # always use dense rows.
+        # row tensor is memory-bandwidth-bound (~180 MB at 1024 agents x
+        # 32 neighbours, streamed twice per IPM iteration); below that
+        # one big matmul beats many small contractions.  The 48 MB
+        # threshold was set on the previous chip and has not been
+        # measured on the H100 yet.  Slack modes always use dense rows.
         dense_bytes = N * C * M * (n + 1) * nv * np.dtype(dtype).itemsize
-        # Size-gated kernel dispatch ("auto"): the single-launch Pallas
-        # IPM exists to amortize per-agent dispatch/HBM traffic, which
-        # only pays off at large swarms -- and at small congested swarms
-        # its hardware solutions measurably trail the XLA factored path
-        # in downstream trajectory quality (multi_square16+forest, TPU
-        # f32, seeds {1,2,11}: fused 180-223 cycles vs XLA 147-155; see
-        # docs/TOLERANCES_r05.md).  Same solver contract (cap, exit
-        # triple, latch, correctors) either way; "auto" picks the kernel
-        # per swarm size like any size-dispatched math library.
-        # qp_fused_mode="on" forces the kernel at every size.
-        fused_ok = (jax.default_backend() == "tpu" and
-                    dtype == jnp.float32 and
-                    (p.qp_fused_mode == "on" or
-                     (p.qp_fused_mode == "auto" and
-                      N >= p.qp_fused_min_agents)))
-        if slack is None and (dense_bytes > 48 * 2 ** 20 or fused_ok):
+        if slack is None and dense_bytes > 48 * 2 ** 20:
             sol = qp_ops.solve_qp_lsc(
                 P, q, self.A_static_y, b_st, normal.astype(dtype), b_pl4,
                 mask_pl4, F_seg, y0=y_warm, iters=p.qp_iterations,
@@ -571,9 +556,7 @@ class TrajOptimizer:
                 tol_rd=p.qp_tol_rd, tol_step=p.qp_tol_step,
                 correctors=p.qp_correctors,
                 s_min=p.qp_s_min,
-                static_blocks=self.static_blocked,
-                P_blk=P_dimblk[:, 0],
-                fused_mode=(p.qp_fused_mode if fused_ok else "off"))
+                static_blocks=self.static_blocked)
             return self._recover(sol, N, dtype, None, None, tmask,
                                  current_goal, gx3)
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops import bernstein as bz
+from ..runtime import exact_f32
 
 
 def _sample_times(record_time_step: float, time_step: float,
@@ -48,11 +49,14 @@ def _sample_weight_matrix(ts, dt, M, n) -> np.ndarray:
 def positions_at(trajs, ts, dt):
     """Sample positions of all agents at times ts: (T, N, 3).
 
-    precision=HIGHEST is load-bearing: TPU default matmul precision routes
-    f32 einsum operands through bf16, which at |x| ~ 148 m quantizes sampled
-    positions to ~0.5 m and collapses nearby agents onto identical points --
-    the audit then reports phantom collisions (min ratio 0.0) on perfectly
-    safe trajectories.  The audit is the de-facto integration test
+    The explicit precision=HIGHEST stays although the cycle entry points
+    trace under the full-f32 policy (runtime.exact_f32): this function is
+    also called outside them, by `precision_self_check`.  A reduced-
+    precision einsum (bf16 passes on the previous chip, TF32 on the H100)
+    quantizes sampled positions at |x| ~ 148 m and collapses nearby
+    agents onto identical points -- the audit then reports phantom
+    collisions (min ratio 0.0) on perfectly safe trajectories.  The
+    audit is the de-facto integration test
     (multi_sync_simulator.cpp:446-503); it must be exact in f32.
     """
     M, n1 = trajs.shape[-3], trajs.shape[-2]
@@ -141,21 +145,29 @@ def continuous_safety_ratio(trajs, radius, downwash):
 
 
 def precision_self_check(coord: float = 148.0, sep: float = 0.43,
-                         tol: float = 1e-3) -> float:
-    """Assert the device audit is exact-f32 on the CURRENT default backend.
+                         tol: float = 1e-3) -> dict:
+    """Assert that position sampling is exact f32 on the default backend.
 
-    Round-4 regression: on TPU, the audit einsum at default matmul
-    precision rounded f32 positions through bf16 (~0.5 m quantum at
-    |x| ~ 148 m), collapsing agents 0.43 m apart onto identical sampled
-    points and reporting phantom min_safety = 0.0 on provably safe
-    trajectories (true f64 safety 1.197).  The pytest suite is CPU-pinned
-    and cannot see this, so the bench calls this once per run on the real
-    backend.
+    Round-4 regression (found on the previous chip): the audit einsum at
+    default matmul precision rounded f32 positions through bf16 (~0.5 m
+    quantum at |x| ~ 148 m), collapsing agents 0.43 m apart onto
+    identical sampled points and reporting phantom min_safety = 0.0 on
+    provably safe trajectories (true f64 safety 1.197).  On the H100 the
+    same leak would be TF32 (~7 cm quantum).  The pytest suite is
+    CPU-pinned and cannot see this, so the bench and chip_smoke.py call
+    this on the device.
 
-    Builds a two-agent constant-position trajectory pair at +/-(coord)
-    with separation ``sep`` along x, samples it through positions_at, and
-    compares with the f64 numpy recompute.  Returns the max abs error;
-    raises AssertionError above ``tol``.
+    Builds a two-agent trajectory pair at +/-(coord) with separation
+    ``sep`` along x and checks two paths against the f64 numpy
+    recompute:
+      * ``audit_sampling_m``: `positions_at` (the audit);
+      * ``rollout_m``: the Bernstein flat-output rollout
+        (``bernstein.traj_state``, used by `SyncSimulator.propagate` and
+        `inject_positions`) jitted under the cycle's precision policy
+        (`runtime.exact_f32`), at mid-segment times so the basis mixes
+        control points.
+    Returns the max abs error of each in metres; raises AssertionError
+    when either exceeds ``tol``.
     """
     M, n1, dt = 5, 6, 0.2
     base = np.zeros((2, M, n1, 3), np.float64)
@@ -166,17 +178,28 @@ def precision_self_check(coord: float = 148.0, sep: float = 0.43,
     # mild curvature so the einsum actually mixes control points
     ramp = np.linspace(0.0, 0.1, M * n1).reshape(M, n1)
     base[..., 0] += ramp
+    traj32 = jnp.asarray(base, jnp.float32)
+
+    def max_err(dev, ts):
+        W = _sample_weight_matrix(ts, dt, M, n1 - 1)
+        ref = np.einsum("tmi,nmid->tnd", W, base)
+        return float(np.abs(np.asarray(dev) - ref).max())
+
     ts = _sample_times(0.05, 0.2, inclusive=False)
-    dev = np.asarray(positions_at(jnp.asarray(base, jnp.float32), ts, dt))
-    W = _sample_weight_matrix(ts, dt, M, n1 - 1)
-    ref = np.einsum("tmi,nmid->tnd", W, base)
-    err = float(np.abs(dev - ref).max())
-    if not err < tol:
-        raise AssertionError(
-            f"audit sampling error {err:.4f} m > {tol} on backend "
-            f"{jax.default_backend()}: positions_at is not exact f32 "
-            "(bf16 matmul leak); min_safety values are untrustworthy")
-    return err
+    ts_roll = np.asarray([0.07, 0.31, 0.55, 0.93])
+    rollout = jax.jit(exact_f32(lambda tr: jax.vmap(
+        lambda t: jax.vmap(lambda x: bz.traj_state(x, t, dt)["pos"])(tr))(
+            jnp.asarray(ts_roll, tr.dtype))))
+    errs = {"audit_sampling_m": max_err(positions_at(traj32, ts, dt), ts),
+            "rollout_m": max_err(rollout(traj32), ts_roll)}
+    for name, err in errs.items():
+        if not err < tol:
+            raise AssertionError(
+                f"{name} error {err:.4f} m > {tol} on backend "
+                f"{jax.devices()[0].platform}: position sampling is not exact "
+                "f32 (reduced-precision matmul); min_safety values are "
+                "untrustworthy")
+    return errs
 
 
 def step_distance(trajs, dt, record_time_step, time_step):

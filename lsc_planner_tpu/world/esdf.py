@@ -213,7 +213,9 @@ class OccupancySAT:
 
         The sampled cell set per axis is {lo-1} u [lo+1, hi] away from the
         world boundary and [lo, hi] at it; reproduced by inclusion-
-        exclusion over the per-axis excluded plane {lo}.
+        exclusion over the per-axis excluded plane {lo}.  A zero-width
+        axis (hi == lo) samples the plane from both sides, {lo-1, lo},
+        so it has no excluded plane.
         """
         k0 = jnp.asarray(self.origin_key, jnp.int32)
         lo = lo_corner - k0
@@ -233,11 +235,13 @@ class OccupancySAT:
                 [jnp.where(T[ax] == 1, lo[..., ax], b[..., ax])
                  for ax in range(3)], axis=-1)
             cnt = self._box_count(t_lo, t_hi)
-            # a bound axis has no excluded plane: its T=1 terms vanish
+            # a bound or zero-width axis has no excluded plane: its T=1
+            # terms vanish
             valid = jnp.ones(lo.shape[:-1], bool)
             for ax in range(3):
                 if T[ax]:
-                    valid = valid & (bound[..., ax] == 0)
+                    valid = valid & (bound[..., ax] == 0) & \
+                        (hi[..., ax] > lo[..., ax])
             sign = (-1) ** sum(T)
             total = total + jnp.where(valid, sign * cnt, 0)
         return total > 0

@@ -7,13 +7,14 @@ the partner in the ego agent's distance ordering (was it inside the
 K-nearest neighbour set?), and both agents' QP primal residuals.
 """
 import math
+import os
 import sys
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from lsc_planner_tpu.runtime import enable_compilation_cache
 enable_compilation_cache()
 from lsc_planner_tpu.config import Param, GoalMode
@@ -22,14 +23,13 @@ from lsc_planner_tpu.sim.simulator import SyncSimulator
 from lsc_planner_tpu.sim import audit
 
 
-def main(qn=1024, K=32, cycles=140, qp_iterations=14, fused="auto"):
+def main(qn=1024, K=32, cycles=140, qp_iterations=14):
     radius = max(4.0, 0.45 * qn / math.pi)
     w = radius + 2.0
     mission = make_circle_mission(qn, radius=radius,
                                   world=(-w, -w, 0, w, w, 2.5))
     param = Param(goal_mode=GoalMode.PRIOR_BASED,
-                  qp_iterations=qp_iterations, max_neighbors=K,
-                  qp_fused_mode=fused)
+                  qp_iterations=qp_iterations, max_neighbors=K)
     sim = SyncSimulator(mission, param, dtype=jnp.float32)
     state = sim.initial_state()
 
@@ -109,6 +109,5 @@ if __name__ == "__main__":
     ap.add_argument("--K", type=int, default=32)
     ap.add_argument("--cycles", type=int, default=140)
     ap.add_argument("--qp-iterations", type=int, default=14)
-    ap.add_argument("--fused", default="auto")
     a = ap.parse_args()
-    main(a.qn, a.K, a.cycles, a.qp_iterations, a.fused)
+    main(a.qn, a.K, a.cycles, a.qp_iterations)

@@ -64,8 +64,8 @@ def main():
             f"# Corpus evaluation ({args.tag})\n\n"
             "Reference mission corpus (`/root/reference/missions/`, the\n"
             "recursive testall sweep sets incl. the archived\n"
-            "`empty/50agents/0816/` missions) through the TPU-native\n"
-            "pipeline.  platform=tpu, dtype=float32, framework-default\n"
+            "`empty/50agents/0816/` missions) through the batched\n"
+            "pipeline.  dtype=float32, framework-default\n"
             "solver (cap 40 + exit triple + step latch + 1 corrector),\n"
             "steps_per_dispatch=10, goal_mode=prior_based, LSC.\n"
             "success = finished within the 600-cycle cap AND zero\n"

@@ -2,8 +2,8 @@
 """Micro-profile of the IPM linear algebra at production shapes.
 
 Times each sub-operation of one IPM iteration at (B=1024, nv=39) on the
-attached TPU to direct kernel work: Gram formation (factored rows),
-Cholesky, and the 4 triangular solves per iteration.
+default device: Gram formation (factored rows), Cholesky, and the 4
+triangular solves per iteration.
 """
 import os
 import sys
@@ -46,11 +46,8 @@ def main():
     A_st = jax.random.normal(k1, (R_S, NV), jnp.float32)
     scale = jnp.ones((B, C, M, N1), jnp.float32)
 
-    from lsc_planner_tpu.ops.chol_pallas import cholesky_batched
-
     with jax.default_matmul_precision("highest"):
         chol_x = jax.jit(jnp.linalg.cholesky)
-        chol_p = jax.jit(cholesky_batched)
 
         def tri2(L, r):
             z = jax.lax.linalg.triangular_solve(
@@ -70,16 +67,15 @@ def main():
 
         L = chol_x(H)
         timeit("xla cholesky (1024,39,39)", chol_x, H)
-        timeit("pallas cholesky", chol_p, H)
         timeit("2x triangular_solve", tri2_j, L, rhs)
         timeit("factored gram", gram_j, d)
 
         def iter_la(Hm, r):
-            Lm = cholesky_batched(Hm)
+            Lm = jnp.linalg.cholesky(Hm)
             x1 = tri2(Lm, r)
             x2 = tri2(Lm, r + x1)
             return x2
-        timeit("chol + 4 trisolves (XLA mix)", jax.jit(iter_la), H, rhs)
+        timeit("chol + 4 trisolves", jax.jit(iter_la), H, rhs)
 
 
 if __name__ == "__main__":

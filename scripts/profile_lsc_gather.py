@@ -13,7 +13,7 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from lsc_planner_tpu.runtime import enable_compilation_cache
+from lsc_planner_tpu.runtime import enable_compilation_cache, exact_f32
 enable_compilation_cache()
 
 import jax
@@ -29,8 +29,8 @@ QN, K, REPS = 1024, 32, 20
 
 
 def scan_time(name, body, init):
-    fn = jax.jit(lambda c: jax.lax.scan(lambda c, _: (body(c), None), c,
-                                        None, length=REPS)[0])
+    fn = jax.jit(exact_f32(lambda c: jax.lax.scan(
+        lambda c, _: (body(c), None), c, None, length=REPS)[0]))
     out = fn(init)
     jax.block_until_ready(out)
     t0 = time.perf_counter()

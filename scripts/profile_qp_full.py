@@ -13,6 +13,7 @@ import numpy as np
 from lsc_planner_tpu.config import Param
 from lsc_planner_tpu.planner.optimizer import TrajOptimizer
 from lsc_planner_tpu.ops import qp as qp_ops
+from lsc_planner_tpu.runtime import exact_f32
 
 N, C = 1024, 38
 ITERS = 14
@@ -38,8 +39,8 @@ def main():
 
     for label, blocks in (("generic static rows", None),
                           ("blocked static rows", opt.static_blocked)):
-        fn = jax.jit(lambda *a: qp_ops.solve_qp_lsc(
-            *a, iters=ITERS, static_blocks=blocks))
+        fn = jax.jit(exact_f32(lambda *a: qp_ops.solve_qp_lsc(
+            *a, iters=ITERS, static_blocks=blocks)))
         sol = fn(*args)
         sol.y.block_until_ready()
         t0 = time.perf_counter()

@@ -5,7 +5,7 @@ Reference: launch/testall_{empty,forest,office}.launch +
 param.cpp:106-141 + multi_sync_simulator_node.cpp:43-75 -- the de-facto
 quality proof of the reference is this batch sweep, one summary row per
 mission.  This driver runs the SAME shipped mission JSONs (and world
-pairings) through the TPU-native pipeline and writes:
+pairings) through the batched pipeline and writes:
 
   results/corpus_<tag>.csv     one row per run (reference summary analog)
   results/CORPUS_<tag>.md      aggregate success-rate table
@@ -18,7 +18,7 @@ Scenario sets (exactly the reference's):
   named   circle20 / square16+simple_forest / simple3 / simple4 ...
 
 Usage:
-  python scripts/run_corpus.py --scenario all --platform tpu
+  python scripts/run_corpus.py --scenario all --platform gpu
   python scripts/run_corpus.py --scenario empty --limit 3 --platform cpu
 """
 import argparse
@@ -230,8 +230,8 @@ def main():
         f.write(
             f"# Corpus evaluation ({args.tag})\n\n"
             f"Reference mission corpus (`/root/reference/missions/`, the\n"
-            f"testall_* sweep sets) through the TPU-native pipeline.\n"
-            f"platform={jax.default_backend()}, dtype={args.dtype}, "
+            f"testall_* sweep sets) through the batched pipeline.\n"
+            f"platform={jax.devices()[0].platform}, dtype={args.dtype}, "
             f"steps_per_dispatch={args.steps_per_dispatch}, "
             f"qp_iterations=default(40 cap, early exit), goal_mode=prior_based, LSC.\n"
             f"success = finished within cap AND zero collisions AND "

@@ -4,8 +4,6 @@ import pytest
 
 from lsc_planner_tpu import native
 
-BT = "/root/reference/world/simple_forest.bt"
-
 
 @pytest.fixture(scope="module")
 def lib():
@@ -14,13 +12,14 @@ def lib():
     return native
 
 
-def test_bt_parse_matches_python(lib):
+def test_bt_parse_matches_python(lib, forest):
     from lsc_planner_tpu.world.octomap_io import load_bt, rasterize
-    tree = load_bt(BT)
+    tree = load_bt(forest.path)
     occ_py, k0 = rasterize(tree, [-5, -5, 0], [5, 5, 2.5])
-    res = lib.bt_resolution(BT)
+    assert occ_py.any()
+    res = lib.bt_resolution(forest.path)
     np.testing.assert_allclose(res, tree.resolution)
-    occ_c = lib.bt_rasterize(BT, k0, np.asarray(occ_py.shape))
+    occ_c = lib.bt_rasterize(forest.path, k0, np.asarray(occ_py.shape))
     assert (occ_c == occ_py).all()
 
 

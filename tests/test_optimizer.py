@@ -206,39 +206,3 @@ def test_2d_layout_halves_qp(rng):
                         axis=1)
     d1 = np.linalg.norm(end - np.asarray(goal)[:, :2], axis=1)
     assert np.all(d1 < d0)
-
-
-def test_2d_fused_pallas_matches_xla(rng):
-    """The fused Pallas IPM must handle ndim=2 tiles (interpret mode)."""
-    from lsc_planner_tpu.ops import qp
-    p2 = _param(world_dimension=2)
-    to2 = opt.TrajOptimizer(p2)
-    A_st = to2.A_static_y
-    nv, nf = to2.nv, to2.nf
-    N, C, M, n1 = 3, 4, to2.M, to2.n + 1
-
-    Lb = rng.normal(size=(N, nf, nf)) * 0.3
-    P_blk = (Lb @ np.swapaxes(Lb, -1, -2) +
-             2.0 * np.eye(nf)).astype(np.float32)
-    P = np.zeros((N, nv, nv), np.float32)
-    for k in range(2):
-        P[:, k * nf:(k + 1) * nf, k * nf:(k + 1) * nf] = P_blk
-    q = rng.normal(size=(N, nv)).astype(np.float32)
-    F_seg = to2.F_seg.astype(np.float32)
-    b_st = (rng.normal(size=(N, A_st.shape[0])) - 5.0).astype(np.float32)
-    normal = rng.normal(size=(N, C, M, 2)).astype(np.float32)
-    rhs = (rng.normal(size=(N, C, M, n1)) - 3.0).astype(np.float32)
-    mask = rng.uniform(size=(N, C, M, n1)) > 0.3
-    y0 = rng.normal(size=(N, nv)).astype(np.float32) * 0.1
-
-    common = [jnp.asarray(P), jnp.asarray(q), jnp.asarray(A_st),
-              jnp.asarray(b_st), jnp.asarray(normal), jnp.asarray(rhs),
-              jnp.asarray(mask), jnp.asarray(F_seg)]
-    kw = dict(y0=jnp.asarray(y0), iters=15,
-              static_blocks=to2.static_blocked, tol_gap=0.0, tol_rp=0.0)
-    ref = qp.solve_qp_lsc(*common, **kw, fused_mode="off")
-    fused = qp.solve_qp_lsc(*common, **kw, P_blk=jnp.asarray(P_blk),
-                            fused_mode="interpret")
-    np.testing.assert_allclose(np.asarray(fused.obj), np.asarray(ref.obj),
-                               rtol=1e-3, atol=1e-5)
-    assert float(jnp.max(fused.primal_res)) < 1e-4

@@ -4,7 +4,7 @@ The only quantitative results inside the reference repo are two runs of
 multi_square16.json + simple_forest.bt (log/summary_LSC_16agents.csv:
 flight time 22.8 / 21.8 s, distance 169.0 / 169.5 m, zero collisions, min
 safety ratio ~1.005).  This test runs the same mission/world through the
-TPU-native pipeline and checks the same success criteria and comparable
+batched pipeline and checks the same success criteria and comparable
 flight statistics.
 """
 import os

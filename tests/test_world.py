@@ -1,5 +1,8 @@
 """Tests for the world layer: .bt parsing, ESDF, SAT box checks, SFC
-expansion, and the forest-world end-to-end slice."""
+expansion, and the forest-world end-to-end slice.  The forest is the
+seeded .bt world generated by the `forest` fixture (conftest.py)."""
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,23 +13,30 @@ from lsc_planner_tpu.world.octomap_io import load_bt, rasterize
 from lsc_planner_tpu.world.esdf import ESDF, OccupancySAT
 from lsc_planner_tpu.world.corridor import CorridorBuilder
 
-BT = "/root/reference/world/simple_forest.bt"
 WMIN = np.array([-5.0, -5.0, 0.0])
 WMAX = np.array([5.0, 5.0, 2.5])
 
 
 @pytest.fixture(scope="module")
-def esdf():
-    return ESDF.from_bt(BT, WMIN, WMAX, dtype=jnp.float64)
+def esdf(forest):
+    return ESDF.from_bt(forest.path, WMIN, WMAX, dtype=jnp.float64)
 
 
-def test_bt_statistics(esdf):
-    """simple_forest: 10x10x2.5 m world with vertical tree columns."""
-    occ = esdf.occ
+def test_bt_statistics(esdf, forest):
+    """The generated 10x10x2.5 m forest reads back as exactly the
+    generator's voxels: full-height trunk columns, a few % occupied."""
+    occ = np.asarray(esdf.occ)
     assert occ.shape == (101, 101, 26)
+    want = np.zeros_like(occ)
+    want[tuple((forest.keys - np.asarray(esdf.origin_key)).T)] = True
+    assert (occ == want).all()
     assert 0.03 < occ.mean() < 0.12
     col = occ.sum(axis=2)
-    assert (col >= 20).sum() > 50          # full-height tree columns
+    # every trunk centre is a solid column up to the 2.5 m ceiling
+    ci = np.floor(forest.trunks / esdf.resolution).astype(int) - \
+        np.asarray(esdf.origin_key)[:2]
+    assert (col[ci[:, 0], ci[:, 1]] == 25).all()
+    assert set(np.unique(col)) == {0, 25}
 
 
 def test_esdf_matches_bruteforce(esdf, rng):
@@ -117,12 +127,12 @@ def test_corridor_expansion_properties(esdf, rng):
     assert ((bmax - bmin).max(axis=1) > 0.5).all()
 
 
-def test_forest_e2e():
+def test_forest_e2e(esdf):
     """4 agents crossing the forest with LSC + SFC + grid goal planning."""
     from lsc_planner_tpu.missions import Mission, AgentSpec
     from lsc_planner_tpu.sim.simulator import SyncSimulator
 
-    esdf32 = ESDF.from_bt(BT, WMIN, WMAX, dtype=jnp.float64)
+    esdf32 = esdf
     starts = [(-4.0, -4.0, 1.0), (4.0, 4.0, 1.0),
               (-4.0, 4.0, 1.0), (4.0, -4.0, 1.0)]
     goals = [(4.0, 4.0, 1.0), (-4.0, -4.0, 1.0),
@@ -178,28 +188,50 @@ def test_box_pair_planes_disjoint():
     assert len(pts) == 0
 
 
-def test_pallas_wavefront_matches_xla(rng):
-    """The VMEM-resident Pallas wavefront (interpret mode on CPU) must
-    reproduce the XLA stencil distances exactly."""
-    from lsc_planner_tpu.ops.wavefront_pallas import wavefront_distance
+def _bfs_distance(occ, goal):
+    """Plain breadth-first 6-connected distance from `goal` (the goal
+    cell counts as free; inf where unreachable)."""
+    D = np.full(occ.shape, np.inf)
+    D[tuple(goal)] = 0.0
+    queue = collections.deque([tuple(goal)])
+    while queue:
+        c = queue.popleft()
+        for ax in range(3):
+            for s in (-1, 1):
+                nb = list(c)
+                nb[ax] += s
+                nb = tuple(nb)
+                if 0 <= nb[ax] < occ.shape[ax] and not occ[nb] and \
+                        D[nb] == np.inf:
+                    D[nb] = D[c] + 1.0
+                    queue.append(nb)
+    return D
+
+
+def test_wavefront_matches_bfs_with_pockets(rng):
+    """The XLA wavefront scan equals a plain BFS exactly, including
+    unreachable pockets (walled-off cells stay inf)."""
     from lsc_planner_tpu.ops.grid_search import GridPlanner
     from lsc_planner_tpu.missions import make_circle_mission
-    occ = rng.random((2, 21, 21, 5)) < 0.25
-    goals = np.array([[20, 20, 4], [3, 17, 1]], np.int32)
-    for i in range(2):
-        occ[i, goals[i, 0], goals[i, 1], goals[i, 2]] = False
-    D_p = np.asarray(wavefront_distance(jnp.asarray(occ),
-                                        jnp.asarray(goals),
-                                        interpret=True))
     mission = make_circle_mission(2, radius=1.0,
                                   world=(0, 0, 0, 5.0, 5.0, 1.0))
     gp = GridPlanner(mission, Param(grid_resolution=0.25), esdf=None)
-    D_x = np.stack([np.asarray(gp.wavefront(jnp.asarray(occ[i]),
-                                            jnp.asarray(goals[i])))
-                    for i in range(2)])
-    a = np.where(np.isinf(D_p), 1e9, np.minimum(D_p, 1e9))
-    b = np.where(np.isinf(D_x), 1e9, np.minimum(D_x, 1e9))
-    np.testing.assert_allclose(a, b)
+    assert tuple(gp.dims) == (21, 21, 5)
+    occ = rng.random((21, 21, 5)) < 0.25
+    # two sealed pockets: a boxed cell and a walled corner region
+    occ[9:12, 9:12, 1:4] = True
+    occ[10, 10, 2] = False
+    occ[:4, 17:, :] = False
+    occ[4, 17:, :] = True
+    occ[:4, 16, :] = True
+    goals = np.array([[20, 0, 4], [15, 3, 1]], np.int32)
+    for g in goals:
+        occ[tuple(g)] = False
+        got = np.asarray(gp.wavefront(jnp.asarray(occ), jnp.asarray(g)))
+        want = _bfs_distance(occ, g)
+        assert np.isinf(want[10, 10, 2]) and np.isinf(want[0, 20, 0])
+        assert gp.max_wavefront_iters >= np.max(want[np.isfinite(want)])
+        np.testing.assert_array_equal(got, want)
 
 
 def test_exact_castray_matches_reference_recursion(esdf, rng):
